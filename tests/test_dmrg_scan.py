@@ -91,7 +91,7 @@ def test_single_compiled_program(key):
 
 
 def test_eig_sweep_gram_split_matches_svd():
-    """split='gram' (eigh-based, remote-TPU-safe) matches the SVD split on
+    """split='gram' (eigh-based) matches the SVD split on
     the Heisenberg ground state to solver accuracy."""
     import jax
     import numpy as np
@@ -104,13 +104,13 @@ def test_eig_sweep_gram_split_matches_svd():
                       normalise=True, orthogonal=True)
     E_s, _ = dmrg_eigsolve_scan(H, x0, tol=1e-10, rmax=12, n_sweeps=3)
     E_g, _ = dmrg_eigsolve_scan(H, x0, tol=1e-10, rmax=12, n_sweeps=3,
-                                split="gram", eig_solver="lanczos_fused")
+                                split="gram")
     assert abs(float(E_s[-1]) - float(E_g[-1])) < 1e-8
 
 
 def test_eig_sweep_f32_env_kernel_path():
-    """f32 eigsweep routes its env builds through the fused A-only env
-    chain (interpret on CPU); energies must match the f64 XLA-scan path."""
+    """The f32 eigsweep (XLA env scans, gram split) matches the energies of
+    the f64 path."""
     import ttnx
     from ttnx.solvers.als_scan import pack_op, pack_tt, rank_masks
     from ttnx.solvers.dmrg_scan import dmrg_eig_sweep

@@ -189,8 +189,8 @@ def test_cn_step_dist_gram_chain_matches_single_device():
 
 
 class TestPipelinedPairRounding:
-    """Pair-pipelined tp rounding (collective/compute overlap structure,
-    VERDICT r4 #7): must equal two independent gram_chain_round_dist
+    """Pair-pipelined tp rounding (collective/compute overlap structure):
+    must equal two independent gram_chain_round_dist
     calls on the virtual mesh."""
 
     def test_pair_matches_two_singles(self, key):

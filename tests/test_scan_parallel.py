@@ -180,8 +180,8 @@ class TestParallel:
 
 
 def test_batched_cg_fused_matches_lu_gauge_invariant():
-    """vmapped solver='cg_fused' (batched Pallas kernel) solves identically
-    to 'lu' on the represented vectors (cores differ only in gauge)."""
+    """vmapped solver='cg' solves identically to 'lu' on the represented
+    vectors (cores differ only in gauge)."""
     import numpy as np
     import jax.numpy as jnp
     import __graft_entry__
@@ -199,7 +199,7 @@ def test_batched_cg_fused_matches_lu_gauge_invariant():
     bb = jnp.broadcast_to(b, (3,) + b.shape)
     xb = jnp.broadcast_to(x, (3,) + x.shape)
     out_lu = batched_als_sweeps(A, bb, xb, masks, 2, solver="lu")
-    out_cf = batched_als_sweeps(A, bb, xb, masks, 2, solver="cg_fused")
+    out_cf = batched_als_sweeps(A, bb, xb, masks, 2, solver="cg")
     for k in range(3):
         v_lu, v_cf = dense(out_lu[k]), dense(out_cf[k])
         assert np.linalg.norm(v_cf - v_lu) / np.linalg.norm(v_lu) < 1e-10

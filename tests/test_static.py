@@ -67,7 +67,8 @@ def test_reference_api_surface_complete():
     "ttnx.solvers.dmrg", "ttnx.solvers.tdvp", "ttnx.solvers.steppers",
     "ttnx.solvers.krylov", "ttnx.solvers.als_scan", "ttnx.solvers.mals_scan",
     "ttnx.solvers.tdvp_scan", "ttnx.solvers.round_scan", "ttnx.cross.cross",
-    "ttnx.cross.maxvol", "ttnx.parallel.batch", "ttnx.kernels.contraction",
+    "ttnx.cross.maxvol", "ttnx.parallel.batch", "ttnx.kernels.dispatch",
+    "ttnx.cross.device", "ttnx.solvers.dmrg_scan", "ttnx.parallel.tsqr",
     "ttnx.utils.manifold", "ttnx.utils.convert", "ttnx.utils.checkpoint",
     "ttnx.utils.validation", "ttnx.utils.profiling",
 ])

@@ -84,7 +84,7 @@ def test_jit_cache_reuse():
 def test_lanczos_large_buffer_matches_eager():
     """rmax=32 buffer (M = 32*2*32 = 2048): the default Lanczos expm path
     never materializes the (RnR)^2 local operator and still matches the
-    eager Krylov reference (VERDICT r2 item 5)."""
+    eager Krylov reference."""
     import jax
     from ttnx import increase_ranks
     from ttnx.core.algebra import norm, scale
@@ -112,7 +112,7 @@ def test_lanczos_matches_dense_expm():
 
 
 def test_real_dtype_imaginary_time_matches_complex():
-    """dtype=float64 imaginary-time TDVP (the TPU path — no c128 on device)
+    """dtype=float64 imaginary-time TDVP (the real-arithmetic path)
     matches the complex128 path exactly."""
     d = 4
     hg = 1.0 / (2 ** d + 1)

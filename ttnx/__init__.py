@@ -1,13 +1,13 @@
-"""ttnx — TPU-native tensor-train / quantics-tensor-train numerics in JAX.
+"""ttnx — tensor-train / quantics-tensor-train numerics in JAX.
 
-A from-scratch TPU-first framework with the capabilities of
+A from-scratch accelerator framework with the capabilities of
 ``MartinMikkelsen/TensorTrainNumerics.jl`` (mounted read-only at
 /root/reference): TT/QTT containers and algebra, SVD decomposition and
 rounding, sweep solvers (ALS/MALS/DMRG), time evolution (TDVP, Euler family,
 Krylov), QTT function encodings and operators, the QTT Fourier transform,
-TT-cross black-box approximation, and quadrature — plus the TPU-only layers the
-reference does not have: mesh/sharding parallelism, batched solves, Pallas
-kernels, checkpointing, and profiling.
+TT-cross black-box approximation, and quadrature — plus the layers the
+reference does not have: mesh/sharding parallelism, batched jitted solves, a
+Triton local-solve kernel, checkpointing, and profiling.
 
 Numerical parity with the reference requires float64, so x64 mode is enabled on
 import (pass-through if the user already configured it).

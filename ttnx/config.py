@@ -73,6 +73,7 @@ def to_kwargs(cfg) -> dict:
 @contextmanager
 def matmul_precision(level: str = "highest"):
     """Scoped default matmul precision ('default' | 'high' | 'highest').
-    Parity tests need 'highest' on TPU; bf16 perf paths use 'default'."""
+    Parity tests need 'highest'; on a GPU 'default' may run f32 dots in
+    TF32."""
     with jax.default_matmul_precision(level):
         yield

@@ -1,6 +1,6 @@
 """TT algebra: add/scale/dot/norm, MPO·MPS, MPO·MPO, Hadamard, Kronecker.
 
-Every contraction is a single einsum per site (one ``dot_general`` on the MXU),
+Every contraction is a single einsum per site (one ``dot_general``),
 replacing the reference's ``@tensoropt`` kernels
 (/root/reference/src/tt_operations.jl). Rank bookkeeping is static (shapes).
 """

@@ -143,7 +143,7 @@ def tt_round(x: TTVector, max_bond: int | None = None,
     """TT rounding (Oseledets): right-orthogonalize, then one left-to-right
     truncated-SVD sweep with relative discarded-weight tolerance.
 
-    This is the numerically optimal compression the TPU build uses internally
+    This is the numerically optimal compression the library uses internally
     (Krylov vectors, steppers); ``tt_compress`` reproduces the reference's
     two-site sweep semantics for parity.
     """

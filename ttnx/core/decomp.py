@@ -1,7 +1,7 @@
 """Dense <-> TT conversions (TT-SVD and reconstruction).
 
-TPU-native notes: reconstruction is a single chain of matmuls with a running
-``(prefix, rank)`` matrix — O(N · r² · 2^d) and MXU-friendly — instead of the
+Notes: reconstruction is a single chain of matmuls with a running
+``(prefix, rank)`` matrix — O(N · r² · 2^d), matmul-only — instead of the
 reference's per-entry contraction loop (/root/reference/src/tt_tools.jl:265-279).
 Decomposition utilities operate on host-resident dense data (they exist for
 setup and oracle testing, like the reference's `ttv_decomp`); rank selection by

@@ -1,10 +1,10 @@
-"""TT/MPS containers for the TPU-native tensor-train numerics framework.
+"""TT/MPS containers for the tensor-train numerics framework.
 
-Design (TPU-first, not a port):
+Design (not a port):
 
 * ``TTVector`` cores live in ``(r_left, n, r_right)`` layout — the natural MPS
   layout on XLA: left-orthogonalization is one reshape + QR, core contraction
-  is one ``dot_general`` on the MXU. (The Julia reference stores ``(n, r-, r+)``
+  is one ``dot_general``. (The Julia reference stores ``(n, r-, r+)``
   column-major, see /root/reference/src/tt_tools.jl:23-29; both describe the
   same object.)
 * ``TTOperator`` cores live in ``(r_left, n_out, n_in, r_right)`` layout

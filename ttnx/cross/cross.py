@@ -3,7 +3,7 @@ algorithms plus Gauss–Legendre TT quadrature.
 
 Reference: /root/reference/src/tt_cross_interpolation.jl. Host-driven control
 flow (ranks and pivots are data-dependent); the parallel work is the *batched*
-black-box evaluations ``f(coords: (m, N)) -> (m,)`` — on TPU, ``f`` is a
+black-box evaluations ``f(coords: (m, N)) -> (m,)`` — on a device, ``f`` is a
 jitted function over large coordinate batches.
 
 Config dataclasses replace the reference's ``Ref`` globals

@@ -1,20 +1,8 @@
-"""Trace-time dispatch between Pallas TPU kernels and XLA fallbacks.
+"""The one place that decides which backend runs a hand-written kernel.
 
-Pallas kernels are compiled by Mosaic on TPU and run in interpret mode
-elsewhere (tests run on the CPU backend). Dispatch decisions are made at
-trace time from static shapes/dtypes and the default backend, so a jitted
-solver bakes in exactly one path — no runtime branching.
-
-What is (and is not) worth a kernel here, per the round-1 measurements:
-
-* the ALS local CG solve (:mod:`ttnx.kernels.local_cg`) — latency-bound
-  as XLA (~6 tiny HLOs per CG iteration), big win from fusing all
-  iterations in VMEM;
-* the two-site merge chain (:mod:`ttnx.kernels.contraction`) — the
-  rank-64 batched contraction benchmark shape (81 vs 28 TFLOP/s on v5e);
-* NOT ``matvec_padded`` (the padded MPO apply): its einsum contracts only
-  the physical index (n=2), so it is a bandwidth-bound reshuffle with no
-  MXU work for a kernel to win back — XLA's fusion is already optimal.
+Decisions are made at trace time from static shapes, dtypes and the default
+backend, so a jitted solver bakes in exactly one path. Everything not named
+here runs as plain XLA on every backend.
 """
 
 from __future__ import annotations
@@ -22,19 +10,15 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["pallas_interpret", "can_fuse_local_cg"]
+__all__ = ["use_triton_cg"]
 
 
-def pallas_interpret() -> bool:
-    """True when Pallas kernels must run in interpret mode (any non-TPU
-    backend — the kernels use pltpu.VMEM memory spaces, which only Mosaic
-    understands). Trace-time constant: the backend is fixed per process."""
-    return jax.default_backend() != "tpu"
-
-
-def can_fuse_local_cg(dtype, M: int) -> bool:
-    """The fused CG kernel handles real dtypes with VMEM-resident K."""
-    from ttnx.kernels.local_cg import fits_vmem
-
-    return (not jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating)
-            and fits_vmem(M))
+def use_triton_cg(dtype, R: int) -> bool:
+    """True where the ALS local CG runs as the Triton kernel
+    (:mod:`ttnx.kernels.cg_triton`): on a GPU, in real f32, at bond rank
+    16. On an H100 the kernel beat the XLA CG end to end at R=16 (the d=12
+    CN step) and lost from R=32 up, where one program per problem is too
+    slow a unit of work (PERF.md, Kernel findings)."""
+    return (jax.default_backend() == "gpu"
+            and jnp.dtype(dtype) == jnp.float32
+            and R == 16)

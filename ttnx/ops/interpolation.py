@@ -1,6 +1,6 @@
 """Interpolative QTT construction (Lagrange / multiscale bridge).
 
-TPU-native replacement for the external ``InterpolativeQTT.jl`` package the
+Replacement for the external ``InterpolativeQTT.jl`` package the
 reference bridges to (``ext/TensorTrainNumericsInterpolativeQTTExt``,
 ``/root/reference/examples/highly_oscillatory.jl``): build a QTT of a 1-D
 function WITHOUT sampling the full ``2^d`` grid, by Chebyshev–Lagrange

@@ -2,9 +2,9 @@
 rank-axis sharding over a device mesh.
 
 The reference is a single-process library (no distributed backend — SURVEY §2.9
-documents the absence); this layer is the TPU-native obligation from
-BASELINE.json's north star: batch independent solves over a ``dp`` axis and
-shard padded rank axes over ``tp``, letting XLA insert ICI collectives.
+documents the absence); this layer batches independent solves over a ``dp``
+axis and shards padded rank axes over ``tp``, letting XLA insert the
+collectives.
 """
 
 from __future__ import annotations
@@ -46,9 +46,8 @@ def make_mesh(dp: int | None = None, tp: int = 1, devices=None) -> Mesh:
 def batched_als_sweeps(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
                        solver: str = "lu"):
     """vmap of the scan-based ALS over a leading problem axis: one operator,
-    a batch of right-hand sides and initial guesses. ``solver='cg_fused'``
-    batches the Pallas local-CG kernel via its vmap rule (the kernel grid
-    gains a batch dimension)."""
+    a batch of right-hand sides and initial guesses. Where ``solver='cg'``
+    runs the Triton local CG, vmap adds a grid dimension to the kernel."""
     fn = jax.vmap(
         lambda b, x: als_sweeps(A_stack, b, x, masks, sweep_count,
                                 solver=solver),

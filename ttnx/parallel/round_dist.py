@@ -6,8 +6,8 @@ This is the "distributed SVD/QR panel factorization" obligation (SURVEY
 §2.9, BASELINE north star) wired into the production rounding path: the
 O(R^2 * nR) Gram accumulations and basis applications — the FLOPs of
 rounding — run sharded over ``tp``, with one ``reduce_scatter`` + one
-``psum`` per site riding ICI, while the tiny eigendecompositions stay
-replicated.
+``psum`` per site over the interconnect, while the tiny eigendecompositions
+stay replicated.
 
 Sharding layout (per site, ``R`` = padded input rank, ``p`` = tp size):
 
@@ -122,7 +122,7 @@ def _gram_chain_kernel_dist(y_loc, masks_out, *, R_out: int, axis: str):
     (re-shard the Y_i G partial products onto this device's column block)
     + one ``psum`` of the (R, R) Gram; forward truncation sweep — one
     ``psum`` of the (R_out*n, R) half-product, one tiny ``psum`` of B, one
-    ``all_gather`` of the (R_out, R) transfer. All ride ICI.
+    ``all_gather`` of the (R_out, R) transfer.
     """
     d, R, n, R_loc = y_loc.shape
     idx = jax.lax.axis_index(axis)
@@ -175,18 +175,17 @@ def _gram_chain_kernel_dist(y_loc, masks_out, *, R_out: int, axis: str):
 
 def _gram_chain_kernel_dist_pipe(y2_loc, masks_out, *, R_out: int,
                                  axis: str):
-    """Pair-pipelined twin of :func:`_gram_chain_kernel_dist` (VERDICT r4
-    #7: structure the distributed rounding for collective/compute
-    overlap). The Gram recurrence is strictly sequential WITHIN a chain —
-    every op at site k-1 consumes the site-k psum — so the only honest
+    """Pair-pipelined twin of :func:`_gram_chain_kernel_dist`, structured
+    for collective/compute overlap. The Gram recurrence is strictly
+    sequential WITHIN a chain — every op at site k-1 consumes the site-k
+    psum — so the only honest
     overlap source is an INDEPENDENT problem: this kernel rounds TWO
     chains with their site loops interleaved, so in program order every
     collective of chain A is followed by chain B's independent partial
     products (and vice versa). XLA's async collectives (start/done pairs)
     can then hide each psum/psum_scatter/all_gather behind the other
-    chain's matmuls on real ICI; on the one reachable chip this is a
-    structure we can only parity-test (the virtual CPU mesh serializes
-    collectives), which docs/design.md records. ``y2_loc (2, d, R, n,
+    chain's matmuls; the virtual CPU mesh serializes collectives, so
+    there the structure is only parity-tested. ``y2_loc (2, d, R, n,
     R/p)``."""
     P2, d, R, n, R_loc = y2_loc.shape
     idx = jax.lax.axis_index(axis)
@@ -320,20 +319,18 @@ def tp_rounding_worthwhile(RA: int, rmax: int, p: int,
     """Auto-select predicate: is tp-sharding the gram rounding expected to
     beat replicated execution?
 
-    Measured basis (scripts/bench_tp_crossover.py, 2026-08-21, recorded in
-    STATUS.md / docs/design.md): the per-site eigh of the (R, R) Gram is
+    Basis: the per-site eigh of the (R, R) Gram is
     replicated and its cost scales with the SAME O(R^3) as the sharded
     matmuls (cm is (R, 2R)), so the replicated fraction is a constant
     ~0.56 at every rank — Amdahl caps the ideal tp speedup at 1.28x (p=2)
-    / 1.49x (p=4) regardless of rank, while the measured shard_map
-    overhead is >= 30x on the virtual mesh and would need to be below
-    ~1.3x on real ICI to break even. Verdict: tp-sharding THIS algorithm
+    / 1.49x (p=4) regardless of rank, so the shard_map overhead would have
+    to stay below ~1.3x to break even. Verdict: tp-sharding THIS algorithm
     never pays; the predicate returns False for every feasible (RA*rmax,
     p) so the auto path keeps rounding replicated, and the sharded kernel
     remains available for explicit scale-out experiments
     (``force_tp=True``). The path forward for a genuinely tp-profitable
-    rounding is the Gram-chain algorithm (ttnx.kernels.gram), whose only
-    eighs are the tiny (2*R_out)^2 truncation ones.
+    rounding is the Gram-chain algorithm (``round_method='gram_chain'``),
+    whose only eighs are the tiny (2*R_out)^2 truncation ones.
     """
     R = RA * rmax
     ideal = 1.0 / (0.56 + 0.44 / p)

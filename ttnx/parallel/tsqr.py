@@ -1,10 +1,9 @@
 """Distributed tall-skinny QR (TSQR) over a device mesh.
 
 The panel factorization behind distributed TT orthogonalization/rounding
-(SURVEY §2.9 / north star: "overlap ICI collectives for distributed SVD/QR
-panel factorization"). The unfolded TT core ``(r*n, r')`` is row-sharded over
-the mesh; each device QRs its block, the small ``R`` factors are all-gathered
-over ICI and reduced by one more QR, and the final thin-Q factors multiply
+(SURVEY §2.9: distributed SVD/QR panel factorization). The unfolded TT core
+``(r*n, r')`` is row-sharded over the mesh; each device QRs its block, the small ``R`` factors are all-gathered
+and reduced by one more QR, and the final thin-Q factors multiply
 back locally — the only communication is the ``p * r'^2`` R-factor gather.
 
 Sign convention: R's diagonal is made non-negative so the factorization is
@@ -45,7 +44,7 @@ def tsqr(a, mesh: Mesh, axis: str = "dp"):
     def kernel(a_blk):
         q1, r1 = jnp.linalg.qr(a_blk)      # local block QR
         q1, r1 = _signfix(q1, r1)
-        # gather every device's small R over ICI: (p*k, k)
+        # gather every device's small R: (p*k, k)
         r_all = jax.lax.all_gather(r1, axis, tiled=True)
         q2, r2 = jnp.linalg.qr(r_all)      # reduce on every device (replicated)
         q2, r2 = _signfix(q2, r2)
@@ -63,8 +62,8 @@ def tsqr(a, mesh: Mesh, axis: str = "dp"):
 
 def cholesky_qr2(a, mesh: Mesh, axis: str = "dp"):
     """QR of a row-sharded matrix ``a: (m, k)`` by two rounds of CholeskyQR —
-    the MXU-idiomatic panel factorization: each round is one local Gram
-    matmul, one ``psum`` over ICI, one tiny replicated Cholesky, and one
+    a matmul-only panel factorization: each round is one local Gram
+    matmul, one ``psum``, one tiny replicated Cholesky, and one
     local triangular solve. Unlike :func:`tsqr` it has **no per-block
     tallness requirement** (works whenever ``m >= k`` globally, e.g. a
     ``(r*n, r)`` TT-core unfolding with ``n=2`` sharded over 8 devices), and

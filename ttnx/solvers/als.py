@@ -2,10 +2,10 @@
 generalized eigenproblems.
 
 Holtz–Rohwedder–Schneider one-site ALS with fixed ranks
-(reference: /root/reference/src/solvers/als.jl). TPU-native formulation:
+(reference: TensorTrainNumerics.jl src/solvers/als.jl). Formulation:
 
 * Symmetric three-leg environments ``L_i / R_i`` of shape ``(r_x, r_A, r_x)``
-  — each update is one einsum (one fused ``dot_general`` chain on the MXU),
+  — each update is one einsum (one fused ``dot_general`` chain),
   replacing the reference's asymmetric 5-leg ``G`` tensors (als.jl:47-50).
 * The local unknown is laid out ``(r_left, n, r_right)`` C-order, so the local
   solution reshapes into a TT core with no permutation (als.jl:104-136 needs

@@ -1,6 +1,6 @@
 """Scan-based padded-rank ALS — the jitted/batched/shardable solver path.
 
-This is the TPU-first formulation of :func:`ttnx.solvers.als.als_linsolve`
+This is the jitted formulation of :func:`ttnx.solvers.als.als_linsolve`
 (reference semantics: /root/reference/src/solvers/als.jl:161-225), designed per
 the padded-rank discipline:
 
@@ -10,7 +10,7 @@ the padded-rank discipline:
   shapes, so one compiled program serves the whole solve.
 * Environments are carried through ``lax.scan`` over the site axis; every
   sweep is three scans (right-env build, forward solve, backward solve) with
-  all per-site contractions expressed as single einsums on the MXU.
+  all per-site contractions expressed as single einsums.
 * The whole solver is a pure jittable function of stacked arrays — ``vmap``
   over a leading problem axis gives continuous batching of independent QTT
   solves, and the batch/rank axes can be sharded over a device mesh
@@ -140,18 +140,11 @@ def _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, v0=None,
                         solver: str = "lu", cg_iters: int = 48):
     """Masked local solve. ``solver='lu'`` assembles the dense operator;
     ``solver='cg'`` runs fixed-iteration conjugate gradients with a
-    matrix-free masked apply — matmul-only, which both maps better onto the
-    MXU and avoids the LU path some TPU toolchains reject inside scans
-    (SPD local operators only, e.g. implicit time stepping);
-    ``solver='cg_fused'`` assembles the masked dense operator like 'lu' but
-    runs the whole CG iteration inside one VMEM-resident Pallas kernel
-    (:func:`ttnx.kernels.local_cg.cg_solve_fused`) — the XLA CG loop is
-    latency-bound on its tiny per-iteration HLOs. ``solver='bicgstab'`` is
-    the matrix-free non-symmetric analog of 'cg'; ``'bicgstab_fused'`` its
-    Pallas form. The fused solvers fall back to their matrix-free einsum
-    forms ('cg' / 'bicgstab') for complex dtypes or when K exceeds the VMEM
-    gate — never to the dense 'lu' path (which some TPU toolchains reject
-    inside scans)."""
+    matrix-free masked apply (SPD local operators only, e.g. implicit time
+    stepping) — as one Triton kernel (:mod:`ttnx.kernels.cg_triton`) where
+    :mod:`ttnx.kernels.dispatch` admits the shape and backend, as XLA
+    elsewhere; ``solver='bicgstab'`` is the matrix-free non-symmetric
+    analog of 'cg'."""
     R = L.shape[0]
     n = Ac.shape[1]
     M = R * n * R
@@ -159,31 +152,15 @@ def _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, v0=None,
               * jnp.ones((1, n, 1), dtype=m_l.dtype))
     rhs = jnp.einsum("au,uiv,cv->aic", Lb, bc, Rb_env,
                      optimize=True) * maskv3
-    if solver in ("cg_fused", "bicgstab_fused"):
-        from ttnx.kernels.dispatch import can_fuse_local_cg, pallas_interpret
-        from ttnx.kernels.local_cg import bicgstab_solve_fused, cg_solve_fused
-        from ttnx.kernels.local_cg_mf import cg_matfree_fused, fits_vmem_mf
+    if solver == "cg":
+        from ttnx.kernels.dispatch import use_triton_cg
 
-        if can_fuse_local_cg(L.dtype, M):
-            K, maskv = _assemble_K_padded(L, Ac, Renv, maskv3)
-            if solver == "bicgstab_fused":
-                V = bicgstab_solve_fused(K, rhs.reshape(M), iters=cg_iters,
-                                         interpret=pallas_interpret())
-            else:
-                x0f = None if v0 is None else (v0 * maskv3).reshape(M)
-                V = cg_solve_fused(K, rhs.reshape(M), x0=x0f,
-                                   iters=cg_iters,
-                                   interpret=pallas_interpret())
-            return V.reshape(R, n, R)
-        if solver == "cg_fused" and fits_vmem_mf(L.dtype, R, Ac.shape[0], n):
-            # rank >= 32: K is VMEM-infeasible but the MATRIX-FREE CG fits
-            # (envs only) — whole solve fused in one kernel (local_cg_mf)
-            return cg_matfree_fused(L, Ac, Renv, rhs, maskv3, x0=v0,
-                                    iters=cg_iters,
-                                    interpret=pallas_interpret())
-        # complex / oversized fallbacks stay matrix-free (einsum applies):
-        # 'cg' for the SPD kernel, 'bicgstab' for the non-symmetric one
-        solver = "cg" if solver == "cg_fused" else "bicgstab"
+        if use_triton_cg(L.dtype, R):
+            from ttnx.kernels.cg_triton import cg_matfree_batched
+
+            x0 = None if v0 is None else v0[None]
+            return cg_matfree_batched(L[None], Ac, Renv[None], rhs[None],
+                                      maskv3, x0, iters=cg_iters)[0]
     if solver in ("cg", "bicgstab"):
         def apply_k(v):
             out = jnp.einsum("aWb,WiJw,cwd,bJd->aic", L, Ac, Renv,
@@ -216,8 +193,7 @@ def _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, v0=None,
             return x
 
         # matrix-free BiCGStab (non-symmetric local operators: convection,
-        # OU drift) — same update scheme as the fused Pallas kernel, with
-        # proper conjugated inner products for complex dtypes
+        # OU drift), with conjugated inner products for complex dtypes
         def safe_div(a, c):
             ok = jnp.abs(c) > 0
             return jnp.where(ok, a / jnp.where(ok, c, 1.0), 0.0)
@@ -269,7 +245,7 @@ def polar_orth(m, iters: int = 14):
     the polar factor: returns ``(q, r)`` with ``q`` having orthonormal columns
     spanning range(m) and ``m = q @ r`` (``r = q^H m``, not triangular).
 
-    A TPU-native QR alternative: pure matmuls, MXU-friendly. Zero (padded)
+    A QR alternative made of pure matmuls. Zero (padded)
     columns stay exactly zero. The quintic coefficients (3.4445, -4.7750,
     2.0315) inflate small singular values far faster than the cubic
     iteration; a few cubic steps then polish toward machine precision.
@@ -315,8 +291,8 @@ def _forward_half_sweep(x, A, b, Renvs, Rb_envs, masks, solver="lu",
     def step(carry, inp):
         L, Lb, T = carry
         Ac, bc, Renv, Rb_env, m_l, m_r, xc = inp
-        # warm start (round 5): the CURRENT iterate's core = T @ x_old[k];
-        # halves the CG iterations at equal residual (measured)
+        # warm start: the CURRENT iterate's core = T @ x_old[k]; halves
+        # the CG iterations at equal residual
         warm = jnp.einsum("ab,bnc->anc", T, xc)
         V = _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r,
                                 v0=warm, solver=solver, cg_iters=cg_iters)
@@ -412,41 +388,21 @@ def als_sweeps(A_stack, b_stack, x_stack, masks, sweep_count: int = 2,
                solver: str = "lu", orth: str = "qr", cg_iters: int = 48):
     """Run ``sweep_count`` ALS half-sweeps (reference counting semantics:
     2 = forward + backward) as one compiled XLA program."""
-    if solver not in ("lu", "cg", "bicgstab", "cg_fused", "bicgstab_fused"):
+    if solver not in ("lu", "cg", "bicgstab"):
         raise ValueError(
-            "solver must be 'lu', 'cg', 'bicgstab', 'cg_fused' or "
-            f"'bicgstab_fused', got {solver!r}")
+            f"solver must be 'lu', 'cg' or 'bicgstab', got {solver!r}")
     if orth not in ("qr", "polar"):
         raise ValueError(f"orth must be 'qr' or 'polar', got {orth!r}")
-    from ttnx.kernels.env_chain import can_fuse_env_chain, env_chain_batchable
-
-    d, R, n, _ = x_stack.shape
-    RA = A_stack.shape[1]
-    fuse_envs = can_fuse_env_chain(x_stack.dtype, d, R, RA, n,
-                                   Rb=b_stack.shape[1])
-
-    def right_envs(x):
-        if fuse_envs:
-            xm = x * masks[1:][:, None, None, :]
-            return env_chain_batchable(xm, A_stack, b_stack, left=False)
-        return _right_env_stack(x, A_stack, b_stack, masks[1:])
-
-    def left_envs(x):
-        if fuse_envs:
-            xm = x * masks[1:][:, None, None, :]
-            return env_chain_batchable(xm, A_stack, b_stack, left=True)
-        return _left_env_stack(x, A_stack, b_stack, masks[1:])
-
     x = x_stack
     half = 0
     while half < sweep_count:
-        Renvs, Rb_envs = right_envs(x)
+        Renvs, Rb_envs = _right_env_stack(x, A_stack, b_stack, masks[1:])
         x = _forward_half_sweep(x, A_stack, b_stack, Renvs, Rb_envs, masks,
                                 solver=solver, orth=orth, cg_iters=cg_iters)
         half += 1
         if half >= sweep_count:
             break
-        Lenvs, Lb_envs = left_envs(x)
+        Lenvs, Lb_envs = _left_env_stack(x, A_stack, b_stack, masks[1:])
         x = _backward_half_sweep(x, A_stack, b_stack, Lenvs, Lb_envs, masks,
                                  solver=solver, orth=orth, cg_iters=cg_iters)
         half += 1

@@ -1,18 +1,8 @@
 """Explicitly-batched scan-ALS: the B axis written into every contraction.
 
 The same algorithm as :func:`ttnx.solvers.als_scan.als_sweeps` with a
-leading batch axis spelled out in every einsum. MEASURED EQUIVALENT to
-``jax.vmap(als_sweeps)`` on the v5e (746 vs 716 ms at B=64, rank 64 —
-within session noise): the batched rank-64 ALS is bounded by a per-op
-scheduling floor (~0.3-0.8 ms for mid-size batched ops), not by the vmap
-transform. The full investigation — vmap vs explicit batch, site-loop
-unrolling, K=R-only dot_general decompositions, polar vs QR orthogonality
-— is recorded in scripts/probe_bals_*.py and STATUS.md; every restructure
-measured EQUAL OR WORSE, so this module stays the einsum form. It exists
-as (a) the explicit-batch substrate a future fused (Pallas) site-solve
-must plug into — ``vmap`` over Mosaic kernels does not compile on the
-remote toolchain — and (b) an independently-tested twin of the vmap path
-(gauge-invariant parity test).
+leading batch axis spelled out in every einsum, kept as an independently
+tested twin of ``jax.vmap(als_sweeps)`` (gauge-invariant parity test).
 
 One operator, a batch of right-hand sides / states, one shared rank-mask
 profile (the continuous-batching contract of ``ttnx.parallel.batch``).
@@ -40,28 +30,34 @@ def _b_boundary_env_b(B, R, Rb, dtype):
 
 
 def _b_local_cg(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, cg_iters: int,
-                solver: str = "cg", v0=None):
-    """Masked matrix-free CG on the batched local system (SPD operators).
-    ``solver='cg_fused'`` routes the whole solve through the explicitly-
-    batched fused kernel (:func:`ttnx.kernels.local_cg_mf.
-    cg_matfree_fused_batched` — grid over the batch, no vmap-over-pallas)
-    when the per-block VMEM gate admits it."""
-    B = L.shape[0]
+                v0=None):
+    """Masked matrix-free CG on the batched local system (SPD operators):
+    the Triton kernel (one program per problem,
+    :mod:`ttnx.kernels.cg_triton`) where :mod:`ttnx.kernels.dispatch`
+    admits the shape and backend, the XLA form elsewhere."""
     R = L.shape[1]
     n = Ac.shape[1]
     maskv3 = (m_l[:, None, None] * m_r[None, None, :]
-              * jnp.ones((1, n, 1), dtype=m_l.dtype))[None]
+              * jnp.ones((1, n, 1), dtype=m_l.dtype))
     rhs = jnp.einsum("Bau,Buiv,Bcv->Baic", Lb, bc, Rb_env,
-                     optimize=True) * maskv3
-    if solver == "cg_fused":
-        from ttnx.kernels.dispatch import pallas_interpret
-        from ttnx.kernels.local_cg_mf import (cg_matfree_fused_batched,
-                                              fits_vmem_mf)
+                     optimize=True) * maskv3[None]
+    from ttnx.kernels.dispatch import use_triton_cg
 
-        if fits_vmem_mf(L.dtype, R, Ac.shape[0], n):
-            return cg_matfree_fused_batched(
-                L, Ac, Renv, rhs, maskv3[0], x0=v0, iters=cg_iters,
-                interpret=pallas_interpret())
+    if use_triton_cg(L.dtype, R):
+        from ttnx.kernels.cg_triton import cg_matfree_batched
+
+        return cg_matfree_batched(L, Ac, Renv, rhs, maskv3, v0,
+                                  iters=cg_iters)
+    return _b_cg(L, Ac, Renv, rhs, maskv3, v0, cg_iters)
+
+
+def _b_cg(L, Ac, Renv, rhs, mask, v0, cg_iters: int):
+    """The XLA form of the batched masked matrix-free CG: ``cg_iters``
+    iterations on ``K v = rhs`` per problem, warm-started at ``v0`` when
+    given. ``L/Renv (B, R, RA, R)``, ``rhs/v0 (B, R, n, R)``, shared
+    ``Ac (RA, n, n, RA)`` and ``mask (R, n, R)``."""
+    B = L.shape[0]
+    maskv3 = mask[None]
 
     def apply_k(v):
         out = jnp.einsum("BaWb,WiJw,Bcwd,BbJd->Baic", L, Ac, Renv,
@@ -99,37 +95,23 @@ def _b_local_cg(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, cg_iters: int,
     return x
 
 
-@partial(jax.jit, static_argnames=("sweep_count", "cg_iters", "solver"))
+@partial(jax.jit, static_argnames=("sweep_count", "cg_iters"))
 def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
-                 cg_iters: int = 32, solver: str = "cg"):
+                 cg_iters: int = 32):
     """Batched ALS half-sweeps with matrix-free CG local solves.
 
     ``A_stack [d, RA, n, n, RA]`` shared operator; ``b_batch/x_batch
     [B, d, R, n, R]``; ``masks [d+1, R]`` shared rank profile. Returns the
     solved ``[B, d, R, n, R]`` stack. Matches ``vmap(als_sweeps(...,
     solver='cg'))`` up to QR sign gauge (the represented vectors agree to
-    roundoff — tests); performance-equivalent to the vmap form on the v5e
-    (see module docstring for the measured investigation).
+    roundoff — tests).
     """
     Bb, d, R, n, _ = x_batch.shape
     dt = x_batch.dtype
     RA = A_stack.shape[1]
     Rb = b_batch.shape[2]
 
-    from ttnx.kernels.dispatch import pallas_interpret
-    from ttnx.kernels.env_chain import (can_fuse_env_chain,
-                                        env_chain_fused_batched)
-
-    fuse_envs = (solver == "cg_fused"
-                 and can_fuse_env_chain(dt, d, R, RA, n, Rb=Rb))
-
     def right_envs(x):
-        if fuse_envs:
-            xm = x * masks[1:][None, :, None, None, :]
-            envs, envs_b = env_chain_fused_batched(
-                xm, A_stack, b_batch, left=False,
-                interpret=pallas_interpret())
-            return jnp.moveaxis(envs, 1, 0), jnp.moveaxis(envs_b, 1, 0)
         init = (_b_boundary_env(Bb, R, RA, dt),
                 _b_boundary_env_b(Bb, R, Rb, dt))
 
@@ -152,12 +134,6 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
         return envs, envs_b
 
     def left_envs(x):
-        if fuse_envs:
-            xm = x * masks[1:][None, :, None, None, :]
-            envs, envs_b = env_chain_fused_batched(
-                xm, A_stack, b_batch, left=True,
-                interpret=pallas_interpret())
-            return jnp.moveaxis(envs, 1, 0), jnp.moveaxis(envs_b, 1, 0)
         init = (_b_boundary_env(Bb, R, RA, dt),
                 _b_boundary_env_b(Bb, R, Rb, dt))
 
@@ -191,7 +167,7 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
             # warm start: the CURRENT iterate's core = T @ x_old[k]
             warm = jnp.einsum("Bab,Bbnc->Banc", T, xc)
             V = _b_local_cg(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r,
-                            cg_iters, solver, v0=warm)
+                            cg_iters, v0=warm)
             q, r = jnp.linalg.qr(V.reshape(Bb, R * n, R))
             q = q * m_r[None, None, :]
             r = r * m_r[None, :, None]
@@ -222,7 +198,7 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
             # warm start: the CURRENT iterate's core = x_mid[k] @ T
             warm = jnp.einsum("Banb,Bbc->Banc", xc, T)
             V = _b_local_cg(Lenv, Ac, Renv, Lb_env, bc, Rb_env, m_l, m_r,
-                            cg_iters, solver, v0=warm)
+                            cg_iters, v0=warm)
             qt, rt = jnp.linalg.qr(jnp.swapaxes(V.reshape(Bb, R, n * R),
                                                 1, 2))
             q = jnp.swapaxes(qt, 1, 2).reshape(Bb, R, n, R) \

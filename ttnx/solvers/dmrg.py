@@ -1,6 +1,6 @@
 """DMRG-style N-site sweep solvers (N=1 single-site, N=2 two-site default).
 
-Reference: /root/reference/src/solvers/dmrg.jl. TPU-native formulation: the
+Reference: TensorTrainNumerics.jl src/solvers/dmrg.jl. Formulation: the
 N-site window operator is pre-contracted per window (``Amid``, dmrg.jl:38-46)
 and the local problem reuses the ALS symmetric environments — the window solve
 is literally the ALS local solve with a merged physical index, one einsum

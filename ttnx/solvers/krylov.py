@@ -1,4 +1,4 @@
-"""Krylov primitives built from scratch for the TPU framework.
+"""Krylov primitives built from scratch for the framework.
 
 The reference leans on KrylovKit (``exponentiate``, ``linsolve``, GMRES /
 BiCGStab / CG) plus a VectorInterface extension that rounds TT ranks inside the
@@ -17,9 +17,8 @@ iteration via the ``KRYLOV_ROUND_RANK`` global
 DEVICE NOTE: this eager tier reads scalars (``float(norm(...))``,
 ``complex(dot(...))``) inside every Arnoldi/CG iteration — one host
 round trip per iteration. That is fine on CPU (the f64 parity tier this
-module exists for) but pathological on a remote-attached TPU where every
-sync costs a ~25 ms RPC: a 30-dim Arnoldi step would spend ~1 s in round
-trips alone. On device, use the jitted scan tier instead —
+module exists for) but slow on an accelerator, where every read waits
+for the device. On device, use the jitted scan tier instead —
 :mod:`ttnx.solvers.als_scan` / ``dmrg_scan`` / ``tdvp_scan`` /
 ``round_scan.make_cn_step`` run whole sweeps/steps as single programs with
 no per-iteration host reads.

@@ -1,6 +1,6 @@
 """MALS (modified ALS): two-site sweeps with bond-adaptive rank truncation.
 
-Reference: /root/reference/src/solvers/mals.jl. TPU-native formulation reuses
+Reference: TensorTrainNumerics.jl src/solvers/mals.jl. The formulation reuses
 the symmetric three-leg environments of :mod:`ttnx.solvers.als`; each two-site
 local operator is a single einsum chain. Rank adaptation uses the reference's
 relative discarded-weight criterion (mals.jl:42-56).

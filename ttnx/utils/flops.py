@@ -62,8 +62,7 @@ def einsum_flops(expr: str, *shapes) -> float:
 def als_sweeps_flops(d: int, R: int, RA: int, Rb: int, n: int = 2,
                      sweep_count: int = 2, cg_iters: int = 32) -> float:
     """Contraction FLOPs of one :func:`ttnx.solvers.als_scan.als_sweeps`
-    call with the matrix-free CG local solver (the rank>=32 device path —
-    the dense-K forms are VMEM-gated out above M=1024)."""
+    call with the matrix-free CG local solver."""
     env_A = einsum_flops("aip,Wijw,bjq,pwq->aWb",
                          (R, n, R), (RA, n, n, RA), (R, n, R), (R, RA, R))
     env_b = einsum_flops("aip,uiv,pv->au", (R, n, R), (Rb, n, Rb), (R, Rb))
@@ -79,7 +78,7 @@ def als_sweeps_flops(d: int, R: int, RA: int, Rb: int, n: int = 2,
 
 def gram_chain_flops(d: int, RB: int, n: int = 2) -> float:
     """Backward right-Gram sweep of a padded ``(d, RB, n, RB)`` chain
-    (:func:`ttnx.kernels.gram.gram_chain_fused` / its XLA twin): per site,
+    (:func:`ttnx.solvers.round_scan._gram_chain_xla`): per site,
     ``n`` pairs of ``(RB,RB)@(RB,RB)`` matmuls."""
     return (d - 1) * n * 2 * (2.0 * RB ** 3)
 
